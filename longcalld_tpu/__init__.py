@@ -1,13 +1,13 @@
-"""longcalld_tpu: a TPU-native long-read small + structural variant caller.
+"""longcalld_tpu: a JAX long-read small + structural variant caller.
 
 A from-scratch re-design of the capabilities of longcallD (local-haplotagging
 based small/structural variant calling for PacBio HiFi and ONT long reads) for
-TPU hardware: the hot compute (phasing EM fixpoint, banded affine wavefront
-alignment) runs on device — the banded DP forward/traceback as Pallas grid
-kernels with VMEM-resident state (ops/pallas_band.py), the rest as jitted
-JAX/XLA kernels (jnp + lax control flow) — over batched fixed-shape windows
-in HBM, while host code (Python + C extensions) handles BAM/FASTA/VCF I/O,
-window planning and the deterministic cross-window stitch reduction.
+an NVIDIA GPU driven from JAX: the hot compute (phasing EM fixpoint, banded
+affine alignment) runs on the device as jitted JAX/XLA (jnp + lax control
+flow) over batched fixed-shape windows, while host code (Python + C
+extensions) handles BAM/FASTA/VCF I/O, window planning and the
+deterministic cross-window stitch reduction.  On the CPU the same device
+stages run through XLA's CPU backend.
 
 Reference behavior parity target: longcallD v0.0.11 (see SURVEY.md).
 """

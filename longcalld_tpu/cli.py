@@ -108,7 +108,7 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--out-som-var-rnames", action="store_true",
                    help="output supporting read names for somatic variants")
     c.add_argument("--no-device", action="store_true",
-                   help="host-only execution (no TPU dispatch)")
+                   help="no device dispatch")
     c.add_argument("--host-procs", type=int, default=-1,
                    help="window-range worker processes for many-window "
                         "streams (-1 = follow -t, 0 = disable)")
@@ -276,16 +276,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         opt = opts_from_args(args)
         cmdline = "longcalld-tpu " + " ".join(argv)
         log.info("main", f"Command: {cmdline}")
-        profiling = False
-        if getattr(args, "profile", None):
-            # device+host trace (SURVEY section 5); best-effort — some
-            # backends cannot serve the profiler
-            try:
-                import jax
-                jax.profiler.start_trace(args.profile)
-                profiling = True
-            except Exception as e:
-                log.warning("main", f"profiler unavailable: {e}")
+        profiling = bool(getattr(args, "profile", None))
+        if profiling:
+            # device+host trace (SURVEY section 5); a trace that cannot
+            # start is an error, not a silent untraced run
+            import jax
+            jax.profiler.start_trace(args.profile)
         bgzip_out = (getattr(args, "out_type", None) == "z"
                      or (opt.out_vcf_fn or "").endswith(".gz"))
         if bgzip_out:
@@ -311,12 +307,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         else:
             run_call(opt, sys.stdout, cmdline)
         if profiling:
-            try:
-                import jax
-                jax.profiler.stop_trace()
-                log.info("main", f"profiler trace written to {args.profile}")
-            except Exception as e:
-                log.warning("main", f"profiler stop failed: {e}")
+            import jax
+            jax.profiler.stop_trace()
+            log.info("main", f"profiler trace written to {args.profile}")
         log.exit_summary()
         return 0
     if args.cmd == "merge":

@@ -218,44 +218,38 @@ class CallOpts:
     window_size: int = BAM_CHUNK_REG_SIZE
 
     # device execution
-    use_device: bool = True          # run hot kernels on TPU via JAX
+    use_device: bool = True          # run hot kernels on the GPU via JAX
     use_device_phase: bool = True    # phasing EM as one device dispatch
                                      # (ops/phase_kernel; host oracle off)
     mesh_devices: int = 0            # >1: shard the phasing kernel's reads
                                      # axis over a dp mesh of this size
     window_devices: int = 0          # windows round-robin over this many
                                      # local devices (0 = all visible); the
-                                     # kt_for-over-chips analog — each busy
-                                     # window's alignment batches + phase
-                                     # kernel run on its assigned chip
+                                     # kt_for-over-devices analog — each
+                                     # busy window's alignment batches +
+                                     # phase kernel run on its device
     device_min_cells: int | None = None  # host/device alignment routing
                                      # threshold in DP cells; None = derive
-                                     # from measured link latency + host
-                                     # aligner throughput at first use
+                                     # from the measured device round trip
+                                     # + host aligner throughput at first
+                                     # use
     stage0_workers: int = 0          # in-process stage-0 thread count
-                                     # (0 = auto: min(n_threads, cpus/2),
-                                     # the measured host-only optimum);
-                                     # device-heavy runs on a high-latency
-                                     # link benefit from more windows in
-                                     # flight since device waits release
-                                     # the GIL
+                                     # (0 = auto: min(n_threads, cpus/2))
     procs_use_device: bool = False   # per-worker device ownership: each
                                      # pool worker process keeps use_device
                                      # and launches with worker_device_env
-                                     # so worker k drives chip k — N
+                                     # so worker k drives card k — N
                                      # processes scale the host stages past
-                                     # the GIL AND drive N chips (the real
-                                     # multi-chip production shape; analog
+                                     # the GIL AND drive N cards (analog
                                      # of the reference's per-thread handle
-                                     # sets, call_var_main.c:637-750)
-    worker_device_env: str = "TPU_VISIBLE_DEVICES={k}"
+                                     # sets, call_var_main.c:637-750); at
+                                     # most one worker per visible card
+    worker_device_env: str = "CUDA_VISIBLE_DEVICES={k}"
                                      # ;-separated NAME=VALUE templates
                                      # ({k} worker index, {n} pool size)
                                      # applied to each device-owning
-                                     # worker's environment; platform-
-                                     # specific (v5e multi-process-per-host
-                                     # uses TPU_VISIBLE_DEVICES; the CPU
-                                     # test mesh pins XLA_FLAGS instead)
+                                     # worker's environment (the CPU test
+                                     # stand-in pins JAX_PLATFORMS=cpu)
 
     @classmethod
     def hifi(cls, **kw) -> "CallOpts":

@@ -8,7 +8,7 @@ cyclic VNTR fuzzy sequence comparator (vntr_fuzzy_comp_seq,
 The row-wise DP uses the prefix-min trick so every row is one numpy pass,
 with a C traceback fast path (native/affine2p.c edit_xgaps_nw).  These
 screens run on single short pairs below the device dispatch floor, so
-they stay host-side; pairs large enough to benefit from the chip go
+they stay host-side; pairs large enough to benefit from the device go
 through the banded device kernel in longcalld_tpu.ops.wfa instead.
 """
 

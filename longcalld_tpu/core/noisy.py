@@ -1,7 +1,7 @@
 """Noisy-region re-assembly driver.
 
 Re-implements the outer loop of collect_var_main's noisy-region stage
-(/root/reference/src/collect_var.c:2947-2977) with a TPU-first twist: every
+(/root/reference/src/collect_var.c:2947-2977) with a batch-first twist: every
 region's engine (core.consensus.collect_noisy_vars1) is a coroutine that
 yields pairwise-alignment requests, and this driver runs all regions of a
 window in lockstep rounds, fusing their requests into a handful of large

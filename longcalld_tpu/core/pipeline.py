@@ -3,10 +3,10 @@ classification -> phasing -> (noisy-region re-assembly) -> genotypes -> VCF.
 
 Orchestration mirror of collect_var_main (/root/reference/src/collect_var.c:
 2897-2980) and the stage-0/1/2 pipeline of call_var_main
-(/root/reference/src/call_var_main.c:762-813).  On TPU the per-window hot
-stages dispatch to longcalld_tpu.ops kernels; windows are processed as a
-stream with deterministic in-order emission (the stitch pass is inherently
-serial, like the reference's kt_pipeline stage 1).
+(/root/reference/src/call_var_main.c:762-813).  The per-window hot stages
+dispatch to longcalld_tpu.ops kernels on the device; windows are processed
+as a stream with deterministic in-order emission (the stitch pass is
+inherently serial, like the reference's kt_pipeline stage 1).
 """
 
 from __future__ import annotations
@@ -405,7 +405,19 @@ def _range_worker(payload):
         variants.sort(key=lambda v: v.pos)
         results.append((variants, chunk.n_reads, _boundary_state(chunk)))
     after = aligner_totals()
-    return results, {k: after[k] - before[k] for k in after}
+    after["device_peak_bytes"] = _device_peak_bytes(opt)
+    return results, {k: after[k] - before.get(k, 0) for k in after}
+
+
+def _device_peak_bytes(opt) -> int:
+    """Peak device bytes this process has held (0 for host-only runs or
+    where the device reports no allocator stats).  It only grows, so the
+    per-range deltas a worker returns sum to the worker's peak."""
+    if not getattr(opt, "use_device", False):
+        return 0
+    import jax
+    stats = jax.devices()[0].memory_stats() or {}
+    return int(stats.get("peak_bytes_in_use", 0))
 
 
 _PS_MAX = np.iinfo(np.int64).max
@@ -469,9 +481,9 @@ def _apply_cross_flip(variants, state, decision):
 def _worker_env_fn(opt):
     """Build the per-worker env-override function from the CallOpts
     template (``worker_device_env``: ;-separated NAME=VALUE entries with
-    {k} = worker index, {n} = pool size).  On a multi-chip v5e host the
-    default ``TPU_VISIBLE_DEVICES={k}`` gives worker k exclusive ownership
-    of chip k — the per-thread handle-set analog
+    {k} = worker index, {n} = pool size).  The default
+    ``CUDA_VISIBLE_DEVICES={k}`` gives worker k exclusive ownership of
+    card k — the per-thread handle-set analog
     (/root/reference/src/call_var_main.c:637-750) extended to devices."""
     tmpl = str(getattr(opt, "worker_device_env", "") or "")
 
@@ -486,6 +498,39 @@ def _worker_env_fn(opt):
         return env
 
     return fn
+
+
+def _visible_cards() -> int:
+    """Number of GPUs worker processes can own, counted WITHOUT opening one
+    in this process: CUDA_VISIBLE_DEVICES when set, else ``nvidia-smi -L``
+    (0 where neither names a card)."""
+    import os
+    import subprocess
+    cvd = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if cvd is not None:
+        return len([d for d in cvd.split(",") if d.strip()])
+    try:
+        out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                             text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return 0
+    return sum(1 for ln in out.stdout.splitlines() if ln.startswith("GPU "))
+
+
+def _check_device_workers(opt, n_workers: int) -> None:
+    """One process per card: a pool of device-owning workers larger than the
+    number of visible cards is refused (the extra workers would fail later
+    for want of device memory).  Workers pinned to the CPU platform own no
+    card and are not limited."""
+    env = _worker_env_fn(opt)(0, n_workers)
+    if env.get("JAX_PLATFORMS") == "cpu":
+        return
+    n_cards = _visible_cards()
+    if n_workers > n_cards:
+        raise ValueError(
+            f"procs_use_device: {n_workers} device-owning workers but "
+            f"{n_cards} visible cards (one process per card); lower "
+            f"--host-procs or -t")
 
 
 def _window_costs(bams, wins):
@@ -578,16 +623,18 @@ def _run_call_procs(opt: CallOpts, out: TextIO, wins, n_workers: int,
     granularity of the reference's batch sizing (min_reg_chunks_per_run,
     /root/reference/src/call_var_main.c:1013).
 
-    Workers are host-only by default (the parent owns the accelerator);
-    with ``procs_use_device`` each worker instead launches owning its OWN
-    chip (worker_device_env), so N processes scale the host stages past
-    the GIL AND drive N devices — the production multi-chip shape."""
+    Workers are host-only by default; with ``procs_use_device`` each worker
+    instead launches owning its OWN card (worker_device_env), so N
+    processes scale the host stages past the GIL AND drive N devices.  The
+    parent never opens a card on this path."""
     import dataclasses
 
     from longcalld_tpu.core import procpool
     from longcalld_tpu.utils import counters, log
 
     dev_workers = bool(getattr(opt, "procs_use_device", False))
+    if dev_workers:
+        _check_device_workers(opt, n_workers)
     opt_w = dataclasses.replace(opt, use_device=dev_workers,
                                 checkpoint_dir=None)
     env_fn = _worker_env_fn(opt) if dev_workers else None
@@ -630,7 +677,7 @@ def _run_call_procs(opt: CallOpts, out: TextIO, wins, n_workers: int,
             if v:
                 counters.inc(f"aln_{k}", v)
                 if dev_workers:
-                    # per-chip attribution: which worker (= which device)
+                    # per-card attribution: which worker (= which device)
                     # ran this range's alignment work — the audit trail
                     # for the procs x devices production shape
                     counters.inc(f"aln_{k}_w{range_worker.get(ridx, -1)}", v)
@@ -689,15 +736,6 @@ def run_call(opt: CallOpts, out: TextIO = sys.stdout,
     # same per-window npz schema); only phased-alignment output still
     # pins the sequential path
     procs_eligible = hp > 1 and opt.out_bam_fn is None
-    if getattr(opt, "use_device", True):
-        # replay last run's device shapes on background threads so every
-        # executable compile/load round trip overlaps the host-side
-        # BAM/FASTA loading instead of serializing into the hot loop
-        # (started even when the process pool may take the stream — the
-        # threads idle out cheaply, and a late start serializes compiles
-        # into the hot loop whenever the run stays in-process)
-        from longcalld_tpu.utils import prewarm
-        prewarm.prewarm_async(n_threads=max(2, int(opt.n_threads or 1)))
     fasta = FastaFile(opt.ref_fa_fn, getattr(opt, 'ref_fai_fn', None))
     bams = [_open_aln(fn, opt.ref_fa_fn) for fn in opt.in_bam_fns]
     if opt.te_seq_fn:
@@ -770,7 +808,21 @@ def run_call(opt: CallOpts, out: TextIO = sys.stdout,
     # the in-process thread path where the device does the heavy alignment
     use_procs = procs_eligible and len(wins) >= (2 if hp_explicit else 4) * hp
     if use_procs:
-        return _run_call_procs(opt, out, wins, hp, bams)
+        # the parent opens no device on this path: workers own the cards
+        n_out = _run_call_procs(opt, out, wins, hp, bams)
+        _log_counters()
+        return n_out
+
+    if getattr(opt, "use_device", True):
+        import jax
+        devs = jax.devices()
+        log.debug(1, "device", f"platform={devs[0].platform} "
+                  f"kind={devs[0].device_kind} count={len(devs)}")
+        # replay last run's device shapes on background threads so the
+        # executable compiles overlap the host-side window stages instead
+        # of serializing into the hot loop
+        from longcalld_tpu.utils import prewarm
+        prewarm.prewarm_async(n_threads=max(2, int(opt.n_threads or 1)))
 
     bam_writer = None
     if opt.out_bam_fn:
@@ -804,23 +856,20 @@ def run_call(opt: CallOpts, out: TextIO = sys.stdout,
 
     tls = threading.local()
 
-    # window data-parallelism over chips (the kt_for-over-devices analog,
-    # SURVEY.md section 2.4): busy windows round-robin over the local
-    # devices; each window's alignment batches and phase kernel are
+    # window data-parallelism over devices (the kt_for-over-devices
+    # analog, SURVEY.md section 2.4): busy windows round-robin over the
+    # local devices; each window's alignment batches and phase kernel are
     # committed to its device, so concurrent stage-0 workers drive
-    # different chips.  mesh_devices>1 (reads-axis sharding of one
+    # different cards.  mesh_devices>1 (reads-axis sharding of one
     # window's phasing across the whole mesh) takes precedence.
     window_devs = []
     if (getattr(opt, "use_device", True)
             and int(getattr(opt, "mesh_devices", 0) or 0) <= 1):
-        try:
-            import jax
-            window_devs = list(jax.devices())
-            nd = int(getattr(opt, "window_devices", 0) or 0)
-            if nd:
-                window_devs = window_devs[:nd]
-        except Exception:
-            window_devs = []
+        import jax
+        window_devs = list(jax.devices())
+        nd = int(getattr(opt, "window_devices", 0) or 0)
+        if nd:
+            window_devs = window_devs[:nd]
 
     def _handles():
         if not hasattr(tls, "fasta"):
@@ -839,15 +888,10 @@ def run_call(opt: CallOpts, out: TextIO = sys.stdout,
             call_window(opt, chunk)
         return chunk
 
-    # measured on the 50 kb-window HG002 workload: 2 stage-0 workers beat
-    # both 1 (no overlap) and 4 (= cpu count; GIL contention between the
-    # interpreted window stages erases the gain — the C aligner pool and
-    # device dispatches release the GIL, the host pipeline stages do not).
-    # Many-window streams bypass this path entirely via _run_call_procs.
-    # stage0_workers overrides the measured host-only default (2): on a
-    # high-latency accelerator link the stage-0 threads spend most of their
-    # time parked in device waits (which release the GIL), so more windows
-    # in flight hide more of the round-trip chain
+    # stage-0 thread count: the C aligner pool and device dispatches
+    # release the GIL, the interpreted host stages do not, so more threads
+    # than cores only add contention.  Many-window streams bypass this path
+    # entirely via _run_call_procs; stage0_workers overrides the default.
     n_workers = int(getattr(opt, "stage0_workers", 0) or 0)
     if n_workers <= 0:
         n_workers = max(1, min(n_threads,
@@ -935,11 +979,23 @@ def run_call(opt: CallOpts, out: TextIO = sys.stdout,
         pool.shutdown(wait=False, cancel_futures=True)
     if bam_writer is not None:
         bam_writer.close()
-    if log.VERBOSE >= 1:
-        from longcalld_tpu.utils import counters
-        for line in counters.summary_lines():
-            log.debug(1, "counters", line)
+    _log_counters()
     return n_out
+
+
+def _log_counters() -> None:
+    """-V exit table: per-stage counters plus the alignment routing split
+    (DP cells on the device, the host C aligner and the memo)."""
+    from longcalld_tpu.utils import counters, log
+    if log.VERBOSE < 1:
+        return
+    from longcalld_tpu.ops.wfa import aligner_totals
+    for line in counters.summary_lines():
+        log.debug(1, "counters", line)
+    tot = aligner_totals()
+    log.debug(1, "counters", " ".join(
+        f"{k}={tot[k]}" for k in ("cells_device", "cells_host", "cells_memo",
+                                  "n_dispatch", "n_fallback")))
 
 
 def _sample_from_header(bam: BamReader) -> Optional[str]:

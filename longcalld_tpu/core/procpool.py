@@ -3,8 +3,8 @@
 The kt_for analog that actually scales the interpreted host stages: CPython's
 GIL serializes them across threads, so run_call hands many-window streams to
 worker PROCESSES (core/procworker.py).  Purpose-built instead of
-multiprocessing because (a) fork from a process holding a live TPU client is
-unsafe, and (b) spawn/forkserver re-import ``__main__`` in the worker, which
+multiprocessing because (a) fork from a process holding a live device client
+is unsafe, and (b) spawn/forkserver re-import ``__main__`` in the worker, which
 breaks under embedded/REPL parents.  Workers here are plain ``python -m``
 subprocesses talking pickles over pipes — no fork, no __main__ re-execution.
 
@@ -12,13 +12,13 @@ Two worker flavors (the reference analog is per-thread handle sets,
 /root/reference/src/call_var_main.c:637-750):
 
 * host-only (default): JAX_PLATFORMS=cpu in the worker env as a hard
-  device-isolation guarantee — the parent process owns the accelerator.
+  device-isolation guarantee.
 * per-worker device (``worker_env_fn``): worker k launches with an
-  env override set that assigns it its OWN chip (e.g.
-  ``TPU_VISIBLE_DEVICES=k`` on a multi-chip host) — the real multi-chip
-  production shape: N processes scale the host stages past the GIL AND
-  drive N devices.  Pools are keyed by the env signature so the two
-  flavors never share workers.
+  env override set that assigns it its OWN card (e.g.
+  ``CUDA_VISIBLE_DEVICES=k`` on a multi-card host): N processes scale the
+  host stages past the GIL AND drive N devices, one process per card.
+  Pools are keyed by the env signature so the two flavors never share
+  workers.
 
 Workers persist across runs (module-level pools), so repeated run_call
 invocations in one process pay the worker-import cost once.
@@ -50,6 +50,12 @@ class _Worker:
                     env.pop(k, None)
                 else:
                     env[k] = str(v)
+        # the worker imports this package from where the parent did, even
+        # when it is not installed and the working directory is elsewhere
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [p for p in [env.get("PYTHONPATH")] if p])
         self.idx = idx
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "longcalld_tpu.core.procworker"],
@@ -140,7 +146,7 @@ def imap_ranges(opt, wins, ranges: Sequence[Tuple[int, int]],
     per-worker-device mode (see module docstring).  ``range_worker_out``,
     when given, is filled with range-index -> worker-index so the caller
     can attribute each range's counter deltas to the worker (and hence
-    the chip) that produced them.  ``order``, when given, is the EXECUTION
+    the card) that produced them.  ``order``, when given, is the EXECUTION
     priority (a permutation of range indices, e.g. heaviest-first for LPT
     scheduling); the yield order is unchanged.
 

@@ -4,9 +4,9 @@ Runs as ``python -m longcalld_tpu.core.procworker`` with a pickle
 request/response protocol over the stdin/stdout pipes.  Each worker is the
 share-nothing analog of one kt_for thread
 (/root/reference/src/kthread.c:24-65): it owns its file-handle set and
-processes contiguous window ranges host-only (the parent process owns the
-device; the pool launches workers with JAX_PLATFORMS=cpu as a hard
-guarantee that no worker ever opens a TPU client).
+processes contiguous window ranges: host-only by default (the pool
+launches workers with JAX_PLATFORMS=cpu as a hard guarantee that no
+worker opens a device), or each owning one card with procs_use_device.
 
 Protocol (one pickled tuple per message):
   ("warm",)                     -> no reply; pre-imports the package so the

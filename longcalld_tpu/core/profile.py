@@ -3,17 +3,16 @@
 Dense replacement for read_var_profile_t (/root/reference/src/collect_var.h:
 98-104): ``chunk.alleles[read_id, var_id]`` in {-1 none, -2 low-qual alt,
 0 ref, 1 alt}, plus per-read [start_var, end_var] spans.  The dense int8
-matrix is exactly the tensor the TPU phasing kernel consumes.
+matrix is exactly the tensor the device phasing kernel consumes.
 
 Mirrors update_read_vs_all_var_profile_from_digar
 (/root/reference/src/bam_utils.c:446-551).
 
-Device-placement rationale: same measurement as core/sites.py — the
-warm C merge-join fills the whole window's profile in ~15-40 ms against
-a >= 90 ms transfer+latency floor for any device formulation on this
-link, with byte-keyed comparators forcing host-side key hashing anyway;
-the profile's CONSUMER (the phasing fixpoint over the dense int8 matrix
-this module produces) is where the device earns its keep.
+Device-placement rationale: as in core/sites.py — the warm C merge-join
+fills the whole window's profile in ~15-40 ms on the host, and byte-keyed
+comparators force host-side key hashing for any device formulation; the
+profile's CONSUMER (the phasing fixpoint over the dense int8 matrix this
+module produces) is where the device earns its keep.
 """
 
 from __future__ import annotations

@@ -10,22 +10,19 @@ Sites are stored struct-of-arrays; a site's identity is
 (INS=1 < DEL=2 < DIFF=8 — the C comparator orders by the raw code).  For
 ordering, indels compare at pos-1 (the anchor-base convention).
 
-Device-placement rationale (measured on the HG002 chr11 500 kb window,
-356 reads / 42,216 digar events / 8,771 sites): the warm sequential C
-join (native/profilejoin.c pileup entry) runs in 25 ms; the vectorized
-numpy form of the same semantics (collect_cand_vars_fast — the shape a
-jnp/device port would take) runs in 83 ms, because the two-pointer's
-constants beat vectorization at this problem size.  A device version
-would additionally pay ~1 MB of event/site input transfer — 35-100 ms at
-this image's measured 10-40 MB/s link plus 2 x 27 ms dispatch latency,
-i.e. >= 3x the ENTIRE C wall before any compute — and on a co-located
-chip the irreducible host work remains: the exact comparator keys on
-variable-length alt-seq BYTES (fuzzy large-INS matching included), which
-must be hashed host-side into fixed keys at a cost comparable to the
-join itself.  With the whole stage at ~4% of the window wall (Amdahl
-cap) the join stays on the host C path by measurement; the device budget
-goes to the stages where dense arithmetic dominates (phase-EM matmuls,
-banded alignment DP — ops/phase_kernel.py, ops/wfa.py).
+Device-placement rationale (measured on the host, HG002 chr11 500 kb
+window, 356 reads / 42,216 digar events / 8,771 sites): the warm
+sequential C join (native/profilejoin.c pileup entry) runs in 25 ms; the
+vectorized numpy form of the same semantics (collect_cand_vars_fast — the
+shape a jnp/device port would take) runs in 83 ms, because the
+two-pointer's constants beat vectorization at this problem size.  A device
+version would also keep the irreducible host work: the exact comparator
+keys on variable-length alt-seq BYTES (fuzzy large-INS matching included),
+which must be hashed host-side into fixed keys at a cost comparable to the
+join itself.  The join stays on the host C path; the device budget goes to
+the stages where dense arithmetic dominates (phase-EM matmuls, banded
+alignment DP — ops/phase_kernel.py, ops/wfa.py).  The GPU time of a device
+formulation is not measured.
 """
 
 from __future__ import annotations

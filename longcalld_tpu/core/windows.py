@@ -3,7 +3,7 @@
 Mirrors collect_regions (/root/reference/src/call_var_main.c:561-634): the
 genome (or explicit regions / BED) is cut into <=500 kb windows, grouped into
 "region chunks" (one per chromosome for whole-genome runs).  Windows are the
-unit of data parallelism — on TPU they are sharded across chips.
+unit of data parallelism — they round-robin over the local devices.
 """
 
 from __future__ import annotations

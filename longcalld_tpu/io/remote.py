@@ -1,6 +1,6 @@
 """Remote http(s) inputs: redirect resolution + range-request byte access.
 
-TPU-native analog of the reference's remote-BAM/FASTA support
+Analog of the reference's remote-BAM/FASTA support
 (/root/reference/src/utils.c:447-521 ``is_url``/``retrieve_full_url`` +
 htslib's hfile_libcurl): the driver resolves the URL once up-front
 (following redirects, as ``retrieve_full_url`` does with

@@ -8,7 +8,7 @@
  *
  * Replaces the reference's WFA2-lib (wfa_end2end_aln,
  * /root/reference/src/align.c:374-460) for pairs below the device-batch
- * threshold; larger pairs run on the TPU banded kernel (ops/wfa.py).
+ * threshold; larger pairs run on the device banded kernel (ops/wfa.py).
  *
  * Traceback plane is one byte per cell:
  *   bits 0-2: source state of the diagonal (M) step, canonical ids

@@ -1,9 +1,9 @@
-"""Multi-chip execution: the production phasing kernel over a device mesh.
+"""Multi-device execution: the production phasing kernel over a device mesh.
 
 The reference's parallelism is a work-stealing parallel-for over ~500 kb
 genomic windows plus a 3-stage pipeline (SURVEY.md section 2.4; kt_for /
-kt_pipeline, /root/reference/src/kthread.c).  The TPU-native mapping has
-two axes:
+kt_pipeline, /root/reference/src/kthread.c).  The device mapping has two
+axes:
 
 * **Window data-parallelism** (the kt_for analog): independent windows
   batched on the leading axis and sharded over ``dp`` —
@@ -19,7 +19,8 @@ two axes:
   is unchanged vs the single-device run).
 
 There is no tensor-parallel analog beyond these — a window's tensors fit
-comfortably in one chip's HBM — so the mesh is 1-D.
+comfortably in one card's memory — so the mesh is 1-D.  The cards are
+joined all to all by NVLink, so the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations

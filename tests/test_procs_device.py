@@ -29,11 +29,11 @@ def _call(opt) -> str:
     return out.getvalue()
 
 
-# the CPU test stand-in for "worker k owns chip k": every worker pins the
-# CPU platform (so this test runs hermetically without N real chips) but
-# keeps use_device=True, which drives the same banded device-aligner code
-# path the TPU takes.  On a real v5e host the default template
-# TPU_VISIBLE_DEVICES={k} gives true per-chip ownership.
+# the CPU test stand-in for "worker k owns card k": every worker pins the
+# CPU platform (so this test runs hermetically without N cards) but keeps
+# use_device=True, which drives the same banded device-aligner code path
+# the GPU takes.  On a multi-GPU host the default template
+# CUDA_VISIBLE_DEVICES={k} gives each worker its own card.
 _CPU_DEV_ENV = "JAX_PLATFORMS=cpu"
 
 
@@ -90,8 +90,25 @@ def test_worker_env_template_expansion():
     from longcalld_tpu.core.pipeline import _worker_env_fn
 
     class O:
-        worker_device_env = "TPU_VISIBLE_DEVICES={k}; POOL_SIZE={n}"
+        worker_device_env = "CUDA_VISIBLE_DEVICES={k}; POOL_SIZE={n}"
 
     fn = _worker_env_fn(O())
-    assert fn(0, 4) == {"TPU_VISIBLE_DEVICES": "0", "POOL_SIZE": "4"}
-    assert fn(3, 4) == {"TPU_VISIBLE_DEVICES": "3", "POOL_SIZE": "4"}
+    assert fn(0, 4) == {"CUDA_VISIBLE_DEVICES": "0", "POOL_SIZE": "4"}
+    assert fn(3, 4) == {"CUDA_VISIBLE_DEVICES": "3", "POOL_SIZE": "4"}
+    assert CallOpts().worker_device_env == "CUDA_VISIBLE_DEVICES={k}"
+
+
+def test_more_device_workers_than_cards_refused(monkeypatch):
+    import pytest
+
+    from longcalld_tpu.core import pipeline
+
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0,1")
+    opt = CallOpts.hifi(procs_use_device=True)
+    pipeline._check_device_workers(opt, 2)          # one per card: fine
+    with pytest.raises(ValueError, match="one process per card"):
+        pipeline._check_device_workers(opt, 4)
+    # CPU stand-in workers own no card and are not limited
+    cpu_opt = CallOpts.hifi(procs_use_device=True,
+                            worker_device_env=_CPU_DEV_ENV)
+    pipeline._check_device_workers(cpu_opt, 8)
